@@ -1,16 +1,14 @@
 """Phase-attribution profile of one Pfam-shaped scan.
 
-The bench's effective GCUPS (bench.py pfam mode) sits well below what the
-per-kpad kernel ladder (docs/PERFORMANCE.md) predicts for the same block
-mix — this script builds the identical problem and attributes a warm
-scan's wall time to three phases:
+Builds bench.py's problem and attributes a warm scan's wall time to three
+phases on the host clock:
 
-  encode+queue    host fragment-index encoding + seqinfo packing/upload
+  encode+queue    host fragment-index encoding + read upload
                   + dispatching every block's kernel (async)
   sync            device completion + result pulls (np.asarray per block)
   gate+traceback  LRT filter + traceback of survivors
 
-Run on the TPU box:  python benchmarks/scan_profile.py
+Run on a GPU:  python benchmarks/scan_profile.py
 """
 
 from __future__ import annotations
@@ -30,15 +28,16 @@ def main() -> None:
     import bench
     from deciphon_tpu.db.format import TensorDB, write_db
     from deciphon_tpu.models.h3reader import build_profile
-    from deciphon_tpu.models.h3writer import random_h3
+    from deciphon_tpu.models.h3writer import pfam_like_core_sizes, random_h3
     from deciphon_tpu.ops.scan_engine import (
         ScanEngine, ScanParams, SeqRecord,
     )
-    from deciphon_tpu.utils import jaxcache
+    from deciphon_tpu.utils import gpu, jaxcache
 
+    print(gpu.require_gpu(), gpu.card_info())
     jaxcache.enable()
     rng = np.random.default_rng(42)
-    sizes = bench.ragged_core_sizes(rng)
+    sizes = pfam_like_core_sizes(rng, bench.NPROF)
     profiles = (
         build_profile(random_h3(int(s) + 1, int(k), peak=0.8))
         for s, k in enumerate(sizes)
@@ -48,14 +47,14 @@ def main() -> None:
         write_db(fp.name, profiles)
         db = TensorDB.load(fp.name)
     print(f"press            {time.perf_counter() - t0:8.3f}s")
-    lens = rng.integers(150, 500, bench.PFAM_NSEQS)
+    lens = rng.integers(150, 500, bench.NSEQS)
     seqs = [
         SeqRecord(i, f"r{i}", "".join(rng.choice(list("ACGT"), int(L))))
         for i, L in enumerate(lens)
     ]
     engine = ScanEngine(db, ScanParams(lrt_threshold=10.0))
     t0 = time.perf_counter()
-    engine.warmup(bench.PFAM_NSEQS, int(lens.max()))
+    engine.warmup(bench.NSEQS, int(lens.max()))
     print(f"warmup           {time.perf_counter() - t0:8.3f}s")
     t0 = time.perf_counter()
     engine.scan(seqs)

@@ -1,13 +1,13 @@
-"""deciphon_tpu — a TPU-native profile-HMM DNA annotation framework.
+"""deciphon_tpu — a JAX profile-HMM DNA annotation framework for NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of EBI-Metagenomics/deciphon-old
-(reference mounted at /root/reference), designed TPU-first:
+(EBI-Metagenomics/deciphon-old), designed for an accelerator:
 
 - profiles are compiled into dense per-state tensors (codon log-marginals,
   background nucleotide log-probs, transition vectors) instead of
   pointer-graph HMMs compiled to sparse DP (reference: imm_hmm -> imm_dp);
 - the frameshift-tolerant codon Viterbi recurrence runs as a batched
-  max-plus scan (JAX lax.scan reference path + Pallas TPU kernel),
+  max-plus scan (JAX lax.scan reference path + Pallas-Triton GPU kernel),
   vectorized over profile nodes and gridded over (reads x profiles);
 - the profile database is sharded over a jax.sharding.Mesh 'profiles'
   axis with collective hit merges, replacing the reference's OpenMP
@@ -17,7 +17,7 @@ Subpackages:
   utils    - return codes, logging, config, hashing cache, math helpers
   models   - alphabets/genetic code, frame-state emission model,
              profile builder, HMMER3 reader, tensorized profiles
-  ops      - Viterbi engines (numpy oracle, JAX scan, Pallas kernel)
+  ops      - Viterbi engines (numpy oracle, JAX scan, GPU kernel)
   db       - tensorized profile database format + partitioning
   parallel - device mesh + sharded scan engine
   server   - scheduler REST client, job runtime, product writer

@@ -32,7 +32,7 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass, field
 
-import msgpack
+from deciphon_tpu.utils import msgpack
 
 from deciphon_tpu.utils.rc import eparse
 

@@ -44,7 +44,7 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass, field
 
-import msgpack
+from deciphon_tpu.utils import msgpack
 import numpy as np
 
 # fragment-code pool sizes: Σ_l<=n 4^l

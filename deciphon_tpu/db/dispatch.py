@@ -19,7 +19,7 @@ STANDARD = "standard"
 def peek_header(path: str) -> dict:
     """Read just the root-map 'header' value from a msgpack db file
     (streaming — the multi-GB profile payload is never touched)."""
-    import msgpack
+    from deciphon_tpu.utils import msgpack
 
     with open(path, "rb") as fp:
         u = msgpack.Unpacker(

@@ -1,6 +1,6 @@
 """Tensorized profile database format (.dtp).
 
-The TPU-native replacement for the reference's .dcp MessagePack database
+The tensor-native replacement for the reference's .dcp MessagePack database
 (src/db/writer.c:95-117, format doc /root/reference/file-format.md).  Same
 container technology (one MessagePack map), but the payload is the dense
 tensor form the scan engines consume directly — per-node codon log-marginal
@@ -19,7 +19,7 @@ import io
 from dataclasses import dataclass
 from typing import Iterable, Iterator
 
-import msgpack
+from deciphon_tpu.utils import msgpack
 import numpy as np
 
 from deciphon_tpu.models.profile import ProteinCfg, ProteinProfile

@@ -31,7 +31,7 @@ def _unarr(d: dict) -> np.ndarray:
 
 
 def write_standard_db(path: str, profiles: list[StandardProfile]) -> int:
-    import msgpack
+    from deciphon_tpu.utils import msgpack
 
     doc = {
         "header": {
@@ -63,7 +63,7 @@ def write_standard_db(path: str, profiles: list[StandardProfile]) -> int:
 
 
 def load_standard_db(path: str) -> list[StandardProfile]:
-    import msgpack
+    from deciphon_tpu.utils import msgpack
 
     with open(path, "rb") as fp:
         doc = msgpack.unpackb(fp.read())

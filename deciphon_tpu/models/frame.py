@@ -26,7 +26,7 @@ is a from-first-principles derivation kept provably normalized):
   2 del + 1 ins at len 2, ...).  Sum over all fragments of all lengths is
   exactly 1 (tested in tests/test_frame.py).
 
-Everything is expressed as table lookups so it vectorizes on TPU:
+Everything is expressed as table lookups so it vectorizes on a device:
 
   - codon distribution  -> 5x5x5 log-marginal table M (index 4 = "any",
     i.e. that codon position summed out), flattened to M[125];
@@ -309,8 +309,9 @@ def fragment_matrix(eps: float, base: int = 4) -> np.ndarray:
         P(Z = frag f) = sum_{i,j,k} qp[i] qp[j] Mp[k] C[i*625+j*125+k, f]
 
     i.e. ``probs = (qp (x) qp (x) Mp) @ C`` — one GEMM scores every
-    fragment for a whole batch of frame states (BLAS on host; MXU-ready
-    on device).  The sentinel column stays all-zero -> log 0 = -inf.
+    fragment for a whole batch of frame states (BLAS on host; a device
+    matmul in ops/tables.py).  The sentinel column stays all-zero ->
+    log 0 = -inf.
 
     With base=5 the fragment set extends over ACGT+N; an N position
     (value 4) routes to the "any" marg pattern and the q[4]=1 sentinel,

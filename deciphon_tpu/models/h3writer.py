@@ -55,6 +55,17 @@ def write_h3(fp, profiles: list[H3Profile] | H3Profile) -> None:
         fp.write("//\n")
 
 
+def pfam_like_core_sizes(rng, n: int) -> np.ndarray:
+    """Pfam-A-shaped core sizes: lognormal (median 150, sigma 0.8 — the
+    bulk of Pfam-A lands in 30-600) clipped to 16..4096, plus forced
+    1024/2048/4096 outliers so the reference envelope's widest tiers
+    (core/limits.h:11) are always exercised."""
+    tail = [1024, 2048, 4096] if n >= 64 else []
+    sizes = np.exp(rng.normal(np.log(150.0), 0.8, n - len(tail)))
+    sizes = np.clip(sizes, 16, 4096).astype(np.int64)
+    return np.concatenate([sizes, tail]).astype(np.int64)
+
+
 def random_h3(
     seed: int, core_size: int, name: str = "", peak: float = 0.0
 ) -> H3Profile:

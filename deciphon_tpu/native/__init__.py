@@ -36,20 +36,25 @@ def _configure(lib) -> None:
         getattr(lib, fn).argtypes = [ctypes.c_void_p]
     lib.dcp_h3_count.restype = ctypes.c_long
     lib.dcp_h3_count.argtypes = [ctypes.c_char_p]
+    lib.dcp_xxh3_64.restype = ctypes.c_uint64
+    lib.dcp_xxh3_64.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+    lib.dcp_xxh3_64_file.restype = ctypes.c_uint64
+    lib.dcp_xxh3_64_file.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)
+    ]
 
 
-def build(force: bool = False) -> bool:
-    """Build the native library (returns True on success)."""
-    if os.path.exists(_LIB_PATH) and not force:
-        return True
+def build() -> bool:
+    """Build the native library, or bring it up to date with its sources
+    (make rebuilds only what changed); returns True if it exists after."""
     try:
         subprocess.run(
             ["make", "-C", _NATIVE_DIR],
             check=True, capture_output=True, timeout=120,
         )
-        return os.path.exists(_LIB_PATH)
     except Exception:  # noqa: BLE001 — fallback path exists
-        return False
+        pass
+    return os.path.exists(_LIB_PATH)
 
 
 def load():
@@ -58,13 +63,13 @@ def load():
     if _lib is not None or _lib_tried:
         return _lib
     _lib_tried = True
-    if not os.path.exists(_LIB_PATH) and not build():
+    if not build():
         return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
         _configure(lib)
         _lib = lib
-    except OSError:
+    except (OSError, AttributeError):  # unbuildable or stale library
         _lib = None
     return _lib
 

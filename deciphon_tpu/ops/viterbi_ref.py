@@ -1,7 +1,7 @@
 """NumPy oracle Viterbi for the codon-frame plan-7 profile.
 
-Slow, obviously-correct reference implementation of the DP the TPU engines
-implement (ops/viterbi_jax.py, ops/viterbi_pallas.py).  Semantics replace
+Slow, obviously-correct reference implementation of the DP the device engines
+implement (ops/viterbi_jax.py, ops/viterbi_gpu.py).  Semantics replace
 imm_dp_viterbi over the profile graph built by the reference
 (src/model/protein_model.c wiring; length-dependent specials from
 protein_profile_setup, src/model/protein_profile.c:155-216):

@@ -5,7 +5,7 @@ src/model/standard_profile.c:22-63: two packed imm_dp's run by the same
 scan vtable as protein profiles).  The recurrence is the textbook dense
 HMM Viterbi — V'[j] = max_i (V[i] + T[i,j]) + E[j, x] — expressed as a
 lax.scan over positions and vmapped over (profiles x sequences); the
-max-plus inner step vectorizes over the state axis (VPU lanes on TPU).
+max-plus inner step vectorizes over the state axis.
 
 Profiles batch by padding states to a common S with NEG rows/columns;
 sequences batch by padding positions (scores are captured at each

@@ -1,18 +1,17 @@
 """Multi-host (multi-process) scan over the JAX distributed runtime.
 
 The reference scales out by running more share-nothing daemons against
-one scheduler (SURVEY.md §5: job-level parallelism).  The TPU rebuild
-additionally scales a SINGLE scan across hosts: every process calls
-``initialize()``, the mesh spans all processes' devices (collectives ride
-ICI within a slice and DCN across hosts), profile shards are placed per
-process with ``make_global_block``, and ``global_viterbi_scores`` runs
-one globally-sharded scan step.
+one scheduler (SURVEY.md §5: job-level parallelism).  This rebuild
+additionally scales a SINGLE scan across processes: every process calls
+``initialize()``, the mesh spans all processes' devices (XLA hands the
+collectives to NCCL between GPUs), profile shards are placed per process
+with ``make_global_block``, and ``global_viterbi_scores`` runs one
+globally-sharded scan step.
 
 Exercised end-to-end over localhost CPU processes by
 ``benchmarks/scaling.py --multiprocess N`` and by
 ``tests/test_distributed.py`` (2 processes, score parity vs the
-unsharded engine); on TPU pods the same entry points apply with the
-default device set.
+unsharded engine); ``--gpu`` gives each process one card.
 """
 
 from __future__ import annotations
@@ -26,12 +25,13 @@ def initialize(
     coordinator: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids: list[int] | None = None,
 ) -> None:
     """jax.distributed.initialize with DCP_* env fallbacks.
 
-    Env: DCP_COORDINATOR (host:port), DCP_NUM_PROCS, DCP_PROC_ID.  On
-    TPU pods all three may be omitted (the runtime autodetects); on CPU
-    or GPU clusters they are required.
+    Env: DCP_COORDINATOR (host:port), DCP_NUM_PROCS, DCP_PROC_ID — all
+    three are required, nothing detects a cluster.  ``local_device_ids``
+    gives this process its own GPUs (one process per card).
     """
     import jax
 
@@ -44,6 +44,7 @@ def initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 
@@ -69,13 +70,21 @@ def make_global_array(mesh, spec, host_array: np.ndarray):
     )
 
 
+def _pad_axis0(a: np.ndarray, mult: int, fill) -> np.ndarray:
+    n = a.shape[0]
+    extra = -(-n // mult) * mult - n
+    if not extra:
+        return a
+    pad = np.full((extra,) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
 def make_global_block(mesh, block):
     """ProfileBlock sharded over the global 'profiles' axis (padded to
     the axis size so every process holds equal shards)."""
     from jax.sharding import PartitionSpec as P
 
     from deciphon_tpu.ops import viterbi_jax as vj
-    from deciphon_tpu.parallel.pallas_scan import _pad_axis0
 
     dp = mesh.shape["profiles"]
     return vj.ProfileBlock(
@@ -101,29 +110,30 @@ def global_viterbi_scores(
 ):
     """One globally-sharded XLA-engine scan step across all processes.
 
-    The multi-process counterpart of pallas_scan.sharded_viterbi_scores:
-    inputs are assembled with make_array_from_callback (device_put cannot
-    address other processes' devices) and the same shard_map program runs
-    SPMD over the global mesh.  Returns the sharded [S, B] score
-    matrices (each process holds its addressable shards).
+    The multi-process counterpart of the ScanEngine's mesh dispatch
+    (ops/scan_engine._score): inputs are assembled with
+    make_array_from_callback (device_put cannot address other processes'
+    devices) and the same shard_map program runs SPMD over the global
+    mesh.  Returns the sharded [S, B] score matrices (each process holds
+    its addressable shards).
     """
     from jax.sharding import PartitionSpec as P
 
+    from deciphon_tpu.ops import scan_engine as se
     from deciphon_tpu.ops import viterbi_jax as vj
-    from deciphon_tpu.parallel import pallas_scan as ps
 
     ds = mesh.shape["seqs"]
     B = block.fm.shape[0]
     S = eidx.shape[0]
     if dev_block is None:
         dev_block = tuple(make_global_block(mesh, block))
-    eidx_p = ps._pad_axis0(np.asarray(eidx, np.int32), ds, 0)
-    slen_p = ps._pad_axis0(np.asarray(seq_len, np.int32), ds, 1)
+    eidx_p = _pad_axis0(np.asarray(eidx, np.int32), ds, 0)
+    slen_p = _pad_axis0(np.asarray(seq_len, np.int32), ds, 1)
     deidx = make_global_array(mesh, P("seqs"), eidx_p)
     dslen = make_global_array(mesh, P("seqs"), slen_p)
-    alt, null = ps._xla_sharded(
-        mesh, dev_block, deidx, dslen,
-        multi_hits=multi_hits, hmmer3_compat=hmmer3_compat,
+    alt, null = se._score(
+        se.XlaBackend(), mesh, vj.ProfileBlock(*dev_block), deidx, dslen,
+        multi_hits=multi_hits, hmmer3_compat=hmmer3_compat, semiring="max",
     )
     return alt[:S, :B], null[:S, :B]
 

@@ -10,7 +10,7 @@ The scan's two data axes map onto a 2-D jax.sharding.Mesh:
 
 Small DBs replicate over 'profiles' (set profile_axis=1); large DBs shard.
 Multi-host runs extend the same mesh over jax.distributed processes — all
-collectives ride ICI within a slice and DCN across hosts automatically.
+collectives go to NCCL between GPUs and across hosts automatically.
 """
 
 from __future__ import annotations

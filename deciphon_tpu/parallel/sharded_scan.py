@@ -2,7 +2,7 @@
 
 Each device scores its (read-shard x profile-shard) tile with the batched
 Viterbi, then per-read best hits merge across the profile axis with
-max/argmax collectives — the TPU-native analogue of the reference's
+max/argmax collectives — the SPMD analogue of the reference's
 share-nothing OpenMP partitions + merged product files
 (src/server/scan.c:239-258, src/server/prod.c:106-145).  The full LRT
 matrix stays sharded for the host to fetch hit coordinates from.

@@ -7,14 +7,19 @@ src/sched/api.c) with the same endpoints, error-envelope protocol
 the reference's RC_END), the X-API-KEY header (xcurl.c:52-88), and the
 reference's 5s connect / long transfer timeouts (xcurl.c:23-24).  A lock
 serializes calls like the reference's global OpenMP lock (api.c:17).
+The transport is the standard library's http.client: JSON bodies, and
+multipart/form-data for file uploads.
 """
 
 from __future__ import annotations
 
+import http.client
+import json as _json
+import os
 import threading
+import uuid
 from dataclasses import dataclass
-
-import requests
+from urllib.parse import urlsplit
 
 from deciphon_tpu.utils import trace
 from deciphon_tpu.server.sched import (
@@ -34,28 +39,82 @@ _IDLE_RC = 5  # no pending job
 _END_RC = 7  # no more sequences
 
 
+@dataclass
+class _Response:
+    status_code: int
+    content: bytes
+
+    def json(self):
+        return _json.loads(self.content)
+
+
+def _multipart(field: str, filename: str, data: bytes, ctype: str):
+    """(body, content-type) of a one-file multipart/form-data upload."""
+    boundary = uuid.uuid4().hex
+    head = (
+        f"--{boundary}\r\n"
+        f'Content-Disposition: form-data; name="{field}"; '
+        f'filename="{os.path.basename(filename)}"\r\n'
+        f"Content-Type: {ctype}\r\n\r\n"
+    ).encode()
+    tail = f"\r\n--{boundary}--\r\n".encode()
+    return head + data + tail, f"multipart/form-data; boundary={boundary}"
+
+
 class SchedAPI:
     def __init__(self, url_stem: str, api_key: str = ""):
         self.url = url_stem.rstrip("/")
-        self.session = requests.Session()
-        if api_key:
-            self.session.headers["X-API-KEY"] = api_key
+        parts = urlsplit(self.url)
+        self._https = parts.scheme == "https"
+        self._netloc = parts.netloc
+        self._prefix = parts.path
+        self._headers = {"X-API-KEY": api_key} if api_key else {}
         self._lock = threading.Lock()
 
     # -- plumbing ----------------------------------------------------------
 
-    def _request(self, method: str, path: str, **kw):
-        kw.setdefault("timeout", (CONNECT_TIMEOUT_S, TRANSFER_TIMEOUT_S))
+    def _request(self, method: str, path: str, json=None, files=None,
+                 dest=None) -> _Response:
+        """One HTTP round trip.  ``json``: a JSON body; ``files``: {field:
+        (filename, fileobj, content type)} sent as multipart/form-data;
+        ``dest``: stream a 200 response body into this path."""
+        headers = dict(self._headers)
+        body = None
+        if json is not None:
+            body = _json.dumps(json).encode()
+            headers["Content-Type"] = "application/json"
+        elif files:
+            ((field, (name, fp, ctype)),) = files.items()
+            body, headers["Content-Type"] = _multipart(
+                field, name, fp.read(), ctype
+            )
+        conn_cls = (
+            http.client.HTTPSConnection if self._https
+            else http.client.HTTPConnection
+        )
         with self._lock:
+            conn = conn_cls(self._netloc, timeout=CONNECT_TIMEOUT_S)
             try:
-                resp = self.session.request(method, self.url + path, **kw)
-            except requests.RequestException as exc:
+                conn.connect()
+                conn.sock.settimeout(TRANSFER_TIMEOUT_S)
+                conn.request(method, self._prefix + path, body=body,
+                             headers=headers)
+                raw = conn.getresponse()
+                if dest is not None and raw.status == 200:
+                    with open(dest, "wb") as out:
+                        while chunk := raw.read(1 << 20):
+                            out.write(chunk)
+                    content = b""
+                else:
+                    content = raw.read()
+                resp = _Response(raw.status, content)
+            except (OSError, http.client.HTTPException) as exc:
                 raise DcpError(RC.EHTTP, f"{method} {path}: {exc}") from exc
+            finally:
+                conn.close()
         if trace.http_debug_enabled():
             trace.log_http(
-                method, path, resp.status_code,
-                len(resp.request.body or b"")
-                if resp.request is not None else 0,
+                method, path, resp.status_code, len(body or b""),
                 len(resp.content),
             )
         return resp
@@ -206,10 +265,7 @@ class SchedAPI:
     # -- helpers -----------------------------------------------------------
 
     def _download(self, path: str, dest_path: str) -> str:
-        resp = self._request("GET", path, stream=True)
+        resp = self._request("GET", path, dest=dest_path)
         if resp.status_code != 200:
             self._envelope(resp)
-        with open(dest_path, "wb") as fp:
-            for chunk in resp.iter_content(1 << 20):
-                fp.write(chunk)
         return dest_path

@@ -57,21 +57,30 @@ def device_trace(label: str = "scan"):
 
 class ScanCounters:
     """Cell-updates/s accounting for one scan (HMMER-GCUPS convention:
-    seqs x profiles x positions x core nodes x 3 states, unpadded)."""
+    seqs x profiles x positions x core nodes x 3 states, unpadded), and
+    the cells the backend dispatched for them (padding included)."""
 
     def __init__(self):
         self.cells = 0
+        self.dispatched = 0
         self.t0 = time.perf_counter()
 
-    def consume(self, seq_len_sum: int, core_sum: int):
+    def consume(self, seq_len_sum: int, core_sum: int, dispatched: int = 0):
         # cells for a (seq-bucket x profile-block) tile: per-pair work is
         # seq_len * core_size * 3; sums factorize across the tile
         self.cells += 3 * seq_len_sum * core_sum
+        self.dispatched += dispatched
+
+    @property
+    def padding_efficiency(self) -> float:
+        """True cells over dispatched cells (1.0 = no padding)."""
+        return self.cells / self.dispatched if self.dispatched else 1.0
 
     def report(self, label: str = "scan"):
         dt = max(time.perf_counter() - self.t0, 1e-9)
         log.info(
             f"{label}: {self.cells:.3g} cell updates in {dt:.2f}s "
-            f"= {self.cells / dt / 1e9:.2f} GCUPS"
+            f"= {self.cells / dt / 1e9:.2f} GCUPS "
+            f"(padding efficiency {self.padding_efficiency:.3f})"
         )
         return self.cells / dt

@@ -1,6 +1,6 @@
 """File utilities: XXH3-64 content hashing and a content-addressed cache.
 
-Reference: src/core/xfile.c:60-100 (streaming XXH3-64 over 8MB blocks) and
+Reference: src/core/xfile.c:60-100 (XXH3-64 of the file's bytes) and
 src/server/file.c:21-34 (file_ensure_local: skip download when the local
 file's hash matches; else fetch and re-verify).  Hashes are reported to the
 scheduler as *signed* 64-bit integers, matching the reference's int64
@@ -12,23 +12,13 @@ from __future__ import annotations
 import os
 from typing import Callable
 
-import xxhash
-
 from deciphon_tpu.utils.rc import RC, DcpError
-
-_BLOCK = 8 * 1024 * 1024
+from deciphon_tpu.utils.xxh3 import xxh3_64_file
 
 
 def xxh3_64(path: str) -> int:
-    """Streaming XXH3-64 of a file, returned as a signed int64."""
-    h = xxhash.xxh3_64()
-    with open(path, "rb") as fp:
-        while True:
-            block = fp.read(_BLOCK)
-            if not block:
-                break
-            h.update(block)
-    value = h.intdigest()
+    """XXH3-64 of a file, returned as a signed int64."""
+    value = xxh3_64_file(path)
     return value - (1 << 64) if value >= (1 << 63) else value
 
 

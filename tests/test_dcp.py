@@ -9,7 +9,7 @@ src/db/protein_writer.c:56-96 header keys, src/model/protein_profile.c
 
 import struct
 
-import msgpack
+from deciphon_tpu.utils import msgpack
 import pytest
 
 from deciphon_tpu.db import dcp

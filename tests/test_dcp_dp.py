@@ -10,7 +10,7 @@ objects that satisfy/violate them.
 
 import struct
 
-import msgpack
+from deciphon_tpu.utils import msgpack
 import numpy as np
 import pytest
 

@@ -1,6 +1,6 @@
 """Multi-process (2 localhost CPU processes) sharded-scan parity.
 
-The CI-runnable stand-in for multi-host TPU scaling: two real OS
+The CI-runnable stand-in for a multi-host scan: two real OS
 processes join one jax.distributed runtime, build a global
 ('seqs' x 'profiles') mesh over 2x2 virtual CPU devices, shard one
 profile DB across it with make_global_block, run one sharded scan step,

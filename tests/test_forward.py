@@ -2,7 +2,7 @@
 
 The reference (like imm) only runs Viterbi; forward is the BASELINE.md
 north-star extension.  Validation ladder: exhaustive path enumeration ->
-f64 numpy oracle -> f32 XLA engine -> Pallas kernel (interpret mode).
+f64 numpy oracle -> f32 XLA engine -> GPU kernel (Pallas interpreter).
 """
 
 import numpy as np
@@ -88,18 +88,17 @@ def test_forward_engine_matches_oracle(batch):
 
 
 def test_forward_pallas_matches_engine(batch):
-    from deciphon_tpu.ops import viterbi_pallas as vp
+    """The GPU kernel (Pallas interpreter) under the logsumexp semiring
+    agrees with the XLA engine's forward scores."""
+    from deciphon_tpu.db.partition import pad_core_size
+    from deciphon_tpu.ops import viterbi_gpu as vg
 
     profs, seqs, block, eidx, slen = batch
     ref_alt, ref_null = vj.forward_scores(block, eidx, slen)
-    # kernel packs to a 255-position chunk; re-pad eidx accordingly
-    lp = 255
-    from deciphon_tpu.models.frame import FRAG_SENTINEL
-
-    eidx_p = np.full((len(seqs), lp, 5), FRAG_SENTINEL, np.int32)
-    eidx_p[:, : eidx.shape[1]] = eidx
-    alt, null = vp.viterbi_scores_pallas(
-        block, eidx_p, slen, interpret=True, semiring="logsumexp"
+    kpad = pad_core_size(max(p.core_size for p in profs))
+    gblock = vg.prepare_block(vj.build_profile_block(profs, kpad=kpad))
+    alt, null = vg.viterbi_scores(
+        gblock, eidx, slen, interpret=True, semiring="logsumexp"
     )
     np.testing.assert_allclose(alt, np.asarray(ref_alt), atol=2e-3)
     np.testing.assert_allclose(null, np.asarray(ref_null), atol=2e-3)
@@ -142,7 +141,7 @@ def _consensus(prof):
 @pytest.mark.parametrize("pallas", [False, True])
 def test_scan_engine_forward_matches_oracle(fwd_db, pallas):
     """ScanEngine(algo='forward') logliks == f64 forward oracle, on both
-    the XLA engine and the (interpret-mode) fused Pallas path."""
+    the XLA engine and the GPU kernel (Pallas interpreter)."""
     from deciphon_tpu.models.alphabet import encode_extended
     from deciphon_tpu.ops.scan_engine import (
         ScanEngine, ScanParams, SeqRecord,
@@ -153,7 +152,7 @@ def test_scan_engine_forward_matches_oracle(fwd_db, pallas):
     seqs = [SeqRecord(i, f"r{i}", r) for i, r in enumerate(reads)]
     eng = ScanEngine(
         db, ScanParams(lrt_threshold=-1e9, algo="forward"),
-        use_pallas=pallas, pallas_interpret=pallas,
+        backend="kernel" if pallas else "xla", interpret=pallas,
     )
     hits = eng.scan(seqs)
     assert len(hits) == len(seqs) * db.nprofiles
@@ -181,7 +180,7 @@ def test_scan_forward_gate_and_match(fwd_db):
     read = _consensus(db.profile(2))
     hits = ScanEngine(
         db, ScanParams(lrt_threshold=10.0, algo="forward"),
-        use_pallas=False,
+        backend="xla",
     ).scan([SeqRecord(1, "c", read)])
     assert [h.profile_idx for h in hits] == [2]
     assert hits[0].match  # Viterbi-path match string present

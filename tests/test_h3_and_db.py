@@ -122,71 +122,33 @@ def test_balanced_partitions():
 
 
 def test_buckets():
-    assert pad_core_size(3) == 8
-    assert pad_core_size(8) == 8
-    assert pad_core_size(9) == 16
+    assert pad_core_size(3) == 32
+    assert pad_core_size(32) == 32
+    assert pad_core_size(33) == 64
     assert pad_core_size(100) == 128
     assert pad_core_size(129) == 256
-    assert pad_core_size(300) == 384
+    assert pad_core_size(300) == 512
+    assert pad_core_size(4096) == 4096
     b = bucket_by_core_size(np.array([3, 7, 100, 120, 300]))
-    assert set(b) == {8, 128, 384}
-    assert b[8].tolist() == [0, 1]
+    assert set(b) == {32, 128, 512}
+    assert b[32].tolist() == [0, 1]
     assert b[128].tolist() == [2, 3]
 
 
-def test_pack_profile_rows():
-    from deciphon_tpu.db.partition import pack_profile_rows
+@pytest.mark.parametrize("max_lanes", [None, 4096, 256])
+def test_pack_blocks(max_lanes):
+    from deciphon_tpu.db.partition import pack_blocks
 
-    cores = np.array([19, 300, 150, 4096, 128, 90, 2048, 40])
-    blocks = pack_profile_rows(cores, group=2, small_group_kpad=1024,
-                               small_group=1, seg=False)
+    cores = np.array([19, 300, 150, 4096, 128, 90, 2048, 40, 100, 120])
+    blocks = pack_blocks(cores, max_lanes=max_lanes)
     # every index exactly once
-    all_idx = np.concatenate([idx for *_, idx in blocks])
+    all_idx = np.concatenate([idx for _, idx in blocks])
     assert sorted(all_idx.tolist()) == list(range(len(cores)))
-    # kpads non-increasing (blocks are contiguous runs of the sorted
-    # cores), every block wide enough for its largest core
-    kpads = [k for k, *_ in blocks]
-    assert kpads == sorted(kpads, reverse=True)
-    for k, g, s, idx in blocks:
-        assert s == 1
-        assert k >= cores[idx].max()
-        assert k % 128 == 0
-    # the 4096 outlier never shares a block with the small cores: its
-    # block only holds >= 2048-core profiles
-    top = blocks[0]
-    assert cores[top[3]].min() >= 2048
-
-
-def test_pack_profile_rows_segmented():
-    from deciphon_tpu.db.partition import SEG_TIERS, pack_profile_rows
-
-    rng = np.random.default_rng(0)
-    cores = np.clip(
-        np.exp(rng.normal(np.log(150.0), 0.8, 512)), 16, 4096
-    ).astype(np.int64)
-    # seg=True explicitly: the function default is now seg=False to
-    # match the engine's measured-best configuration (ADVICE r4)
-    blocks = pack_profile_rows(cores, seg=True)
-    all_idx = np.concatenate([idx for *_, idx in blocks])
-    assert sorted(all_idx.tolist()) == list(range(len(cores)))
-    smax = dict(SEG_TIERS)
-    padded = 0
-    for kpad, g, s, idx in blocks:
-        assert kpad >= cores[idx].max()
-        assert (kpad * s) % 128 == 0
-        if s > 1:
-            assert kpad * s <= 768  # segmented rows stay VMEM-resident
-            assert s <= smax[kpad]
-        slots = g * s
-        padded += -(-len(idx) // slots) * slots * kpad
-    # segmentation must appear and lift padding efficiency well past the
-    # round-3 unsegmented packing (~0.65 on this shape)
-    assert any(s > 1 for _, _, s, _ in blocks)
-    assert cores.sum() / padded > 0.68
-
-    # a tiny DB must not explode to 128-slot segmented rows
-    tiny = pack_profile_rows(np.array([150, 30, 200, 80]))
-    tpad = sum(
-        -(-len(idx) // (g * s)) * g * s * k for k, g, s, idx in tiny
-    )
-    assert tpad <= 16 * 256
+    for kpad, idx in blocks:
+        # one power-of-two tier per block, wide enough for every core
+        assert kpad & (kpad - 1) == 0
+        assert all(pad_core_size(int(k)) == kpad for k in cores[idx])
+        if max_lanes is not None:
+            assert len(idx) == 1 or len(idx) * kpad <= max_lanes
+    if max_lanes is None:
+        assert len(blocks) == len(bucket_by_core_size(cores))

@@ -64,7 +64,7 @@ def test_sharded_matches_single_device(data, paxis):
 
 
 # ---------------------------------------------------------------------------
-# Production sharded ScanEngine (Pallas kernel under shard_map)
+# Production sharded ScanEngine (each backend under shard_map)
 # ---------------------------------------------------------------------------
 
 
@@ -93,8 +93,8 @@ def _hits(engine, seqs):
     )
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_sharded_scan_engine_matches_single(scan_db, use_pallas):
+@pytest.mark.parametrize("kernel", [True, False])
+def test_sharded_scan_engine_matches_single(scan_db, kernel):
     """The production mesh mode extracts the SAME full hit list (every
     LRT-passing (seq, profile) pair) with the same match strings as the
     single-device engine — the scan-semantics bar of scan_thread.c:121-129
@@ -104,13 +104,11 @@ def test_sharded_scan_engine_matches_single(scan_db, use_pallas):
     db, seqs = scan_db
     params = ScanParams(lrt_threshold=-1e9)  # keep every pair
     mesh = make_scan_mesh(profile_axis=4, seq_axis=2)
+    backend = "kernel" if kernel else "xla"
     sharded = ScanEngine(
-        db, params, mesh=mesh,
-        use_pallas=use_pallas, pallas_interpret=use_pallas,
+        db, params, mesh=mesh, backend=backend, interpret=kernel,
     )
-    single = ScanEngine(
-        db, params, use_pallas=use_pallas, pallas_interpret=use_pallas,
-    )
+    single = ScanEngine(db, params, backend=backend, interpret=kernel)
     hs, h1 = _hits(sharded, seqs), _hits(single, seqs)
     assert len(hs) == len(h1) == len(seqs) * db.nprofiles
     for a, b in zip(hs, h1):
@@ -127,32 +125,32 @@ def test_sharded_scan_engine_thresholded(scan_db):
     db, seqs = scan_db
     params = ScanParams(lrt_threshold=10.0)
     mesh = make_scan_mesh(profile_axis=2, seq_axis=4)
-    hs = _hits(ScanEngine(db, params, mesh=mesh, use_pallas=False), seqs)
-    h1 = _hits(ScanEngine(db, params, use_pallas=False), seqs)
+    hs = _hits(ScanEngine(db, params, mesh=mesh, backend="xla"), seqs)
+    h1 = _hits(ScanEngine(db, params, backend="xla"), seqs)
     assert [(h.seq_idx, h.profile_idx, h.match) for h in hs] == [
         (h.seq_idx, h.profile_idx, h.match) for h in h1
     ]
 
 
 def test_mesh_warmup_covers_scan_variants(scan_db):
-    """Mesh-path warmup (round-3 fixed a silent no-op here) must compile
-    every kernel/epilogue variant the real scan will use: after warmup,
-    scanning adds NO new entries to the sharded dispatch's jit cache."""
+    """Mesh-path warmup must compile every variant the real scan will
+    use: after warmup, scanning adds NO new entries to the sharded
+    dispatch's jit cache."""
+    from deciphon_tpu.ops import scan_engine as se
     from deciphon_tpu.ops.scan_engine import ScanEngine, ScanParams, SeqRecord
-    from deciphon_tpu.parallel import pallas_scan as ps
 
     db, seqs = scan_db
     mesh = make_scan_mesh(profile_axis=4, seq_axis=2)
     eng = ScanEngine(
         db, ScanParams(lrt_threshold=1e9), mesh=mesh,
-        use_pallas=True, pallas_interpret=True,
+        backend="kernel", interpret=True,
     )
     spent = eng.warmup(len(seqs), max(len(s) for s in seqs))
-    assert spent > 0.0  # not the round-3 silent no-op
-    cached = ps._run_sharded._cache_size()
+    assert spent > 0.0
+    cached = se._score._cache_size()
     assert cached > 0
     eng.scan([SeqRecord(i, f"s{i}", s) for i, s in enumerate(seqs)])
-    assert ps._run_sharded._cache_size() == cached
+    assert se._score._cache_size() == cached
 
 
 def test_best_hits_sharded_equals_unsharded(scan_db):
@@ -164,8 +162,8 @@ def test_best_hits_sharded_equals_unsharded(scan_db):
     recs = [SeqRecord(i, f"s{i}", s) for i, s in enumerate(seqs)]
     params = ScanParams(lrt_threshold=-1e9)
     mesh = make_scan_mesh(profile_axis=4, seq_axis=2)
-    bs = ScanEngine(db, params, mesh=mesh, use_pallas=False).best_hits(recs)
-    b1 = ScanEngine(db, params, use_pallas=False).best_hits(recs)
+    bs = ScanEngine(db, params, mesh=mesh, backend="xla").best_hits(recs)
+    b1 = ScanEngine(db, params, backend="xla").best_hits(recs)
     assert [(b.seq_id, b.profile_idx) for b in bs] == [
         (b.seq_id, b.profile_idx) for b in b1
     ]

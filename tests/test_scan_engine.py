@@ -45,17 +45,16 @@ def db(tmp_path_factory):
 
 
 def test_pad_seq_len():
-    # whole streaming chunks: every read <= 255 shares one bucket
-    assert pad_seq_len(5) == 255
-    assert pad_seq_len(255) == 255
-    assert pad_seq_len(256) == 510
-    # power-of-two chunk tiers bound compile variants
-    assert pad_seq_len(511) == 1020
-    assert pad_seq_len(1100) == 2040
+    # every read <= 64 shares one tier
+    assert pad_seq_len(5) == 64
+    assert pad_seq_len(64) == 64
+    assert pad_seq_len(65) == 128
+    # power-of-two tiers bound compile variants
+    assert pad_seq_len(500) == 512
+    assert pad_seq_len(1100) == 2048
     for L in range(1, 4000, 7):
         p = pad_seq_len(L)
-        # power-of-two tier: padded to < 2x the needed chunk count
-        assert p >= L and p % 255 == 0 and p < 2 * (L + 255)
+        assert p >= L and p & (p - 1) == 0 and p < 2 * max(L, 64)
 
 
 def test_scan_finds_planted_hit(db):
@@ -93,7 +92,7 @@ def test_scan_finds_planted_hit(db):
 
 
 def test_scan_pallas_path_matches_jax(db):
-    """The Pallas dispatch (interpret mode on CPU) agrees with the XLA
+    """The GPU kernel (Pallas interpreter on CPU) agrees with the XLA
     engine through the full ScanEngine pipeline."""
     read = consensus_dna(db.profile(2))
     seqs = [
@@ -102,8 +101,7 @@ def test_scan_pallas_path_matches_jax(db):
     ]
     ref = ScanEngine(db, ScanParams(lrt_threshold=10.0)).scan(seqs)
     got = ScanEngine(
-        db, ScanParams(lrt_threshold=10.0),
-        use_pallas=True, pallas_interpret=True,
+        db, ScanParams(lrt_threshold=10.0), backend="kernel", interpret=True,
     ).scan(seqs)
     assert [(h.seq_id, h.profile_idx) for h in got] == [
         (h.seq_id, h.profile_idx) for h in ref
@@ -225,8 +223,8 @@ def test_codec_decode_stream():
 
 
 def test_long_read_scan(db):
-    """Multi-kb reads stream through the chunked kernel (interpret mode
-    here; verified on hardware at 8 kb)."""
+    """A multi-kb read runs through the GPU kernel's position loop
+    (Pallas interpreter here)."""
     import numpy as np
 
     rng = np.random.default_rng(5)
@@ -242,8 +240,8 @@ def test_long_read_scan(db):
         r(1200) + consensus + r(800) + consensus + r(700) + consensus
         + r(500)
     )
-    eng = ScanEngine(db, ScanParams(lrt_threshold=10.0), use_pallas=True,
-                     pallas_interpret=True)
+    eng = ScanEngine(db, ScanParams(lrt_threshold=10.0), backend="kernel",
+                     interpret=True)
     hits = eng.scan([SeqRecord(1, "long", long_read)])
     assert any(h.profile_idx == 2 for h in hits)
 
@@ -351,29 +349,31 @@ def test_best_hits_device_reduction(db):
 
 
 def test_scan_iupac_on_pallas_path(db, monkeypatch):
-    """IUPAC classes run the Pallas kernel on extended tables when
-    use_pallas is on (round-3 silently fell back to the XLA engine,
-    dropping ambiguous batches 2-5x in throughput)."""
-    from deciphon_tpu.ops import viterbi_pallas as vp
+    """IUPAC classes score on the GPU kernel over extended tables (base 5
+    for N: 3906 rows), never on another engine."""
+    from deciphon_tpu.ops import scan_engine as se
 
     built = []
-    orig_init = vp.PallasBlock.__init__
+    orig = se.KernelBackend.prepare
 
-    def spy_init(self, block, *a, **kw):
+    def spy(self, block):
         built.append(block.fm.shape[-1])  # table height (ntab)
-        return orig_init(self, block, *a, **kw)
+        return orig(self, block)
 
-    monkeypatch.setattr(vp.PallasBlock, "__init__", spy_init)
+    monkeypatch.setattr(se.KernelBackend, "prepare", spy)
+    monkeypatch.setattr(
+        se.XlaBackend, "score",
+        lambda *a, **k: pytest.fail("XLA engine used on the gpu backend"),
+    )
     target = db.profile(2)
     read = consensus_dna(target)
     noisy = read[:6] + "N" + read[7:]
-    eng = ScanEngine(db, ScanParams(lrt_threshold=10.0), use_pallas=True,
-                     pallas_interpret=True)
+    eng = ScanEngine(db, ScanParams(lrt_threshold=10.0), backend="kernel",
+                     interpret=True)
     hits = eng.scan([SeqRecord(1, "n", noisy), SeqRecord(2, "c", read)])
     h = {h.seq_id: h for h in hits if h.profile_idx == 2}
     assert set(h) == {1, 2}
-    # an extended-table (base-5: 3906-row) PallasBlock was built + used
-    assert 3906 in built
+    assert 3906 in built and 1365 in built
     from deciphon_tpu.models.alphabet import encode_extended
 
     enc, codes = encode_extended(noisy)
@@ -383,9 +383,9 @@ def test_scan_iupac_on_pallas_path(db, monkeypatch):
 
 @pytest.fixture(scope="module")
 def wide_db(tmp_path_factory):
-    """Cores spanning several packing tiers so the engine builds
-    multiple blocks (segmented + unsegmented)."""
-    tmp = tmp_path_factory.mktemp("fused")
+    """Cores spanning several core-width tiers so the engine builds
+    multiple blocks."""
+    tmp = tmp_path_factory.mktemp("wide")
     hmm = tmp / "wide.hmm"
     with open(hmm, "w") as fp:
         write_h3(
@@ -400,46 +400,39 @@ def wide_db(tmp_path_factory):
     return TensorDB.load(dbp)
 
 
-def test_fused_scan_matches_per_block(wide_db, monkeypatch):
-    """The fused single-dispatch scan (viterbi_pallas.fused_scores, the
-    production single-chip path) returns exactly the per-block path's
-    hits."""
+@pytest.mark.parametrize("algo", ["viterbi", "forward"])
+def test_wide_scan_kernel_matches_xla(wide_db, algo):
+    """Over several core-width blocks, the GPU kernel's scan returns the
+    XLA engine's hits: same pairs, same match strings, same scores."""
     reads = [consensus_dna(wide_db.profile(i)) for i in (2, 5, 7)]
     seqs = [SeqRecord(i, f"r{i}", r) for i, r in enumerate(reads)] + [
         SeqRecord(9, "rand", "ACGTACGTACGTACGTACGTACGTACG")
     ]
-    params = ScanParams(lrt_threshold=10.0)
-    monkeypatch.setenv("DCP_FUSE_SCAN", "1")
-    fused_eng = ScanEngine(
-        wide_db, params, use_pallas=True, pallas_interpret=True
-    )
-    assert fused_eng.fuse
-    fused = fused_eng.scan(seqs)
-    monkeypatch.setenv("DCP_FUSE_SCAN", "0")
-    per_block_eng = ScanEngine(
-        wide_db, params, use_pallas=True, pallas_interpret=True
-    )
-    assert not per_block_eng.fuse
-    per_block = per_block_eng.scan(seqs)
-    assert len(fused) >= 3
-    assert [(h.seq_id, h.profile_idx, h.match) for h in fused] == [
-        (h.seq_id, h.profile_idx, h.match) for h in per_block
+    params = ScanParams(lrt_threshold=10.0, algo=algo)
+    kern = ScanEngine(wide_db, params, backend="kernel", interpret=True)
+    assert len({b.kpad for b in kern._blocks}) >= 4
+    got = kern.scan(seqs)
+    ref = ScanEngine(wide_db, params, backend="xla").scan(seqs)
+    assert len(got) >= 3
+    assert [(h.seq_id, h.profile_idx, h.match) for h in got] == [
+        (h.seq_id, h.profile_idx, h.match) for h in ref
     ]
-    for a, b in zip(fused, per_block):
-        assert a.alt_loglik == pytest.approx(b.alt_loglik, abs=1e-5)
-        assert a.null_loglik == pytest.approx(b.null_loglik, abs=1e-5)
+    for a, b in zip(got, ref):
+        assert a.alt_loglik == pytest.approx(b.alt_loglik, abs=1e-3)
+        assert a.null_loglik == pytest.approx(b.null_loglik, abs=1e-3)
 
 
-def test_fused_warmup_covers_scan_variants(wide_db, monkeypatch):
+@pytest.mark.parametrize("backend", ["xla", "kernel"])
+def test_warmup_covers_scan_variants(wide_db, backend):
     """After warmup, a scan of the warmed (nseqs, max_len) shape adds NO
-    new entries to the fused dispatch's jit cache — the cold-start
-    contract of the daemon's spool-overlapped prewarm."""
-    from deciphon_tpu.ops import viterbi_pallas as vp
+    new entries to the dispatch's jit cache — the cold-start contract of
+    the daemon's spool-overlapped prewarm — and warmup reports real
+    seconds on every backend."""
+    from deciphon_tpu.ops import scan_engine as se
 
-    monkeypatch.setenv("DCP_FUSE_SCAN", "1")
     eng = ScanEngine(
-        wide_db, ScanParams(lrt_threshold=1e9),
-        use_pallas=True, pallas_interpret=True,
+        wide_db, ScanParams(lrt_threshold=1e9), backend=backend,
+        interpret=backend == "kernel",
     )
     seqs = [
         SeqRecord(i, f"s{i}", consensus_dna(wide_db.profile(7))[: 60 + i])
@@ -447,47 +440,73 @@ def test_fused_warmup_covers_scan_variants(wide_db, monkeypatch):
     ]
     spent = eng.warmup(len(seqs), max(len(s.data) for s in seqs))
     assert spent > 0.0
-    cached = vp.fused_scores._cache_size()
+    cached = se._score._cache_size()
     assert cached > 0
     eng.scan(seqs)
-    assert vp.fused_scores._cache_size() == cached
+    assert se._score._cache_size() == cached
 
 
-def test_best_hits_fused_device_reduction(wide_db, monkeypatch):
-    """On the fused path, best_hits reduces the concatenated score
-    matrix ON DEVICE (one jitted argmax over static block boundaries,
-    O(nblocks*S) pull) and matches the per-block reduction exactly —
-    the full [S, total] matrix must never be pulled to host."""
-    from deciphon_tpu.ops import scan_engine as se
-
+def test_best_hits_kernel_matches_xla(wide_db):
+    """best_hits on the GPU kernel returns the XLA engine's per-read
+    winners."""
     reads = [consensus_dna(wide_db.profile(i)) for i in (2, 5, 7)] + [
         "ACGTACGTACGTACGTACGTACGTACG"
     ]
     seqs = [SeqRecord(i, f"r{i}", r) for i, r in enumerate(reads)]
     params = ScanParams(lrt_threshold=-1e9)
-    pulled = []
-    orig = se._SharedPull.numpy
-
-    def spy(self):
-        pulled.append(True)
-        return orig(self)
-
-    monkeypatch.setattr(se._SharedPull, "numpy", spy)
-    monkeypatch.setenv("DCP_FUSE_SCAN", "1")
-    fused_eng = ScanEngine(
-        wide_db, params, use_pallas=True, pallas_interpret=True
-    )
-    assert fused_eng.fuse
-    fused = fused_eng.best_hits(seqs)
-    assert not pulled  # the wide matrix stayed on device
-    monkeypatch.setenv("DCP_FUSE_SCAN", "0")
-    per_eng = ScanEngine(
-        wide_db, params, use_pallas=True, pallas_interpret=True
-    )
-    per = per_eng.best_hits(seqs)
-    assert [(b.seq_id, b.profile_idx) for b in fused] == [
-        (b.seq_id, b.profile_idx) for b in per
+    got = ScanEngine(
+        wide_db, params, backend="kernel", interpret=True
+    ).best_hits(seqs)
+    ref = ScanEngine(wide_db, params, backend="xla").best_hits(seqs)
+    assert [(b.seq_id, b.profile_idx) for b in got] == [
+        (b.seq_id, b.profile_idx) for b in ref
     ]
-    for a, b in zip(fused, per):
-        assert a.lrt == pytest.approx(b.lrt, abs=1e-5)
-        assert a.alt_loglik == pytest.approx(b.alt_loglik, abs=1e-5)
+    for a, b in zip(got, ref):
+        assert a.lrt == pytest.approx(b.lrt, abs=1e-4)
+        assert a.alt_loglik == pytest.approx(b.alt_loglik, abs=1e-4)
+
+
+def test_backend_selection():
+    """The backend follows the platform; interpret mode is never
+    inferred, and an unknown platform is an error."""
+    from deciphon_tpu.ops import scan_engine as se
+
+    assert se.make_backend() == se.XlaBackend()  # tests run on the CPU
+    assert se.backend_name("gpu") == "kernel"
+    assert se.backend_name("cpu") == "xla"
+    assert se.make_backend("kernel") == se.KernelBackend(interpret=False)
+    assert se.make_backend("kernel", interpret=True).interpret
+    for bad in ("rocm", "metal", "neuron"):
+        with pytest.raises(ValueError):
+            se.backend_name(bad)
+    for name, interpret in (("xla", True), ("pallas", False)):
+        with pytest.raises(ValueError):
+            se.make_backend(name, interpret=interpret)
+
+
+def test_padding_accounting(wide_db):
+    """Each backend reports the cells it dispatched: the XLA engine runs
+    every read to the length tier, the kernel each read tile to its
+    longest read; true cells never exceed dispatched cells."""
+    from deciphon_tpu.ops import scan_engine as se
+
+    seqs = [
+        SeqRecord(i, f"s{i}", consensus_dna(wide_db.profile(7))[: 30 + 40 * i])
+        for i in range(4)
+    ]
+    eff = {}
+    for backend in ("xla", "kernel"):
+        eng = ScanEngine(wide_db, ScanParams(lrt_threshold=1e9),
+                         backend=backend, interpret=backend == "kernel")
+        eng.scan(seqs)
+        c = eng._counters
+        assert 0 < c.cells <= c.dispatched
+        eff[backend] = c.padding_efficiency
+    assert eff["kernel"] > eff["xla"]
+    lens = np.array([len(s.data) for s in seqs], np.int32)[::-1]
+    slen = np.ones(se.pad_batch(len(seqs)), np.int32)
+    slen[: len(lens)] = np.sort(lens)[::-1]
+    R = 32  # 1024 // 32 nodes: all four reads share one tile
+    assert se.KernelBackend().dispatched_cells(32, 2, slen, 256) == (
+        3 * 2 * 32 * R * (int(slen[0]) + 1)
+    )

@@ -167,7 +167,7 @@ def test_cli_scan_dispatches_standard(tmp_path, capsys):
 
 
 def test_standard_db_rejects_wrong_type(tmp_path):
-    import msgpack
+    from deciphon_tpu.utils import msgpack
 
     from deciphon_tpu.db.standard_db import load_standard_db
     from deciphon_tpu.utils.rc import DcpError

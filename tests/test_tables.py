@@ -1,10 +1,10 @@
-"""Device-side (MXU) fragment-table synthesis vs the host f64 path.
+"""Device-side fragment-table synthesis vs the host f64 path.
 
 ops/tables.synth_fragment_tables must reproduce models/frame.fragment_table
 (the host dgemm that replaces imm's press-time per-state table precompute,
-reference src/model/protein_model.c:247-254) up to f32 rounding, and the
-PallasBlock.from_profiles constructor must produce the same packed layout
-as the host pack_block path.
+reference src/model/protein_model.c:247-254) up to f32 rounding, in base 4
+and base 5, and ops/tables.device_profile_block must build the same block
+as the host viterbi_jax.build_profile_block.
 """
 
 import numpy as np
@@ -13,7 +13,6 @@ import pytest
 from deciphon_tpu.models import frame
 from deciphon_tpu.models.profile import sample_profile
 from deciphon_tpu.ops import viterbi_jax as vj
-from deciphon_tpu.ops import viterbi_pallas as vp
 from deciphon_tpu.ops.tables import synth_fragment_tables
 
 
@@ -26,19 +25,21 @@ def _rand_state(rng):
     return marg, q
 
 
+@pytest.mark.parametrize("base", [4, 5])
 @pytest.mark.parametrize("eps", [0.01, 0.1])
-def test_synth_matches_host_tables(eps):
+def test_synth_matches_host_tables(eps, base):
     rng = np.random.default_rng(0)
     margs, qs = zip(*[_rand_state(rng) for _ in range(6)])
     marg = np.stack(margs)
     q = np.stack(qs)
-    host = frame.fragment_table(marg, q, eps)  # [6, 1365+1] f64
+    host = frame.fragment_table(marg, q, eps, base)  # [6, NTAB] f64
     dev = np.asarray(
         synth_fragment_tables(
             np.exp(marg).astype(np.float32),
             np.exp(q).astype(np.float32),
             eps=eps,
             row_chunk=8,
+            base=base,
         )
     )
     assert dev.shape == host.shape
@@ -48,21 +49,22 @@ def test_synth_matches_host_tables(eps):
     assert np.all(dev[~finite] <= vj.NEG / 2)
 
 
-def test_from_profiles_matches_pack_block():
+@pytest.mark.parametrize("codes", [(), ("N",), ("R",)])
+def test_device_block_matches_host_block(tmp_path, codes):
+    from deciphon_tpu.db.format import TensorDB, write_db
+    from deciphon_tpu.ops.tables import device_profile_block
+
     profiles = [sample_profile(s + 1, (s % 5) + 2) for s in range(10)]
-    block = vj.build_profile_block(profiles, kpad=8)
-    femis_m, femis_in, trans, B = vp.pack_block(block)
-    pb = vp.PallasBlock.from_profiles(profiles, kpad=8)
-    assert pb.nprofiles == B
-    assert pb.kpad == femis_m.shape[-1]
-    dm = np.asarray(pb.femis_m)
-    din = np.asarray(pb.femis_in)
-    # identical layout; values equal up to f32 synthesis rounding, with
-    # NEG fills on padding sublanes/lanes in both paths
-    mask = femis_m > vj.NEG / 2
-    np.testing.assert_allclose(dm[mask], femis_m[mask], atol=2e-5)
-    assert np.all(dm[~mask] <= vj.NEG / 2)
-    maskin = femis_in > vj.NEG / 2
-    np.testing.assert_allclose(din[maskin], femis_in[maskin], atol=2e-5)
-    assert np.all(din[~maskin] <= vj.NEG / 2)
-    np.testing.assert_allclose(np.asarray(pb.trans), trans, atol=1e-6)
+    write_db(str(tmp_path / "t.dtp"), profiles)
+    db = TensorDB.load(str(tmp_path / "t.dtp"))
+    idxs = np.array([7, 2, 5])
+    host = vj.build_profile_block(
+        [db.profile(int(i)) for i in idxs], kpad=32, codes=codes
+    )
+    dev = device_profile_block(db, idxs, 32, codes)
+    for name, h, d in zip(vj.ProfileBlock._fields, host, dev):
+        d = np.asarray(d)
+        assert d.shape == h.shape, name
+        live = h > vj.NEG / 2
+        np.testing.assert_allclose(d[live], h[live], atol=2e-5, err_msg=name)
+        assert np.all(d[~live] <= vj.NEG / 2), name
